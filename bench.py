@@ -1,4 +1,4 @@
-"""Benchmark: FORA top-k PPR queries/sec on TPU vs an optimized CPU baseline.
+"""Benchmark: FORA top-k PPR queries/sec on the device vs a CPU baseline.
 
 Workload (BASELINE.json configs): top-k SSPPR with the full FORA hybrid
 (push-until-rmax then residual-weighted walks) at alpha=0.15, eps=0.5, k=10
@@ -12,7 +12,8 @@ stand-in for the reference's Java/Neo4j engine, which cannot run here (no
 JVM/Maven in the image; the committed reference also does not compile,
 Fora_Topk.java:136).
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}
+naming the device it ran on. A device failure fails the run.
 """
 
 from __future__ import annotations
@@ -124,42 +125,11 @@ class CpuFora:
             delta = max(self.min_delta, delta / 4.0)
 
 
-def _numpy_oracle(ds, sources, alpha, iters=100):
-    """Power-iteration oracle without the device (fallback path)."""
-    import scipy.sparse as sp
-
-    g = ds.graph
-    n = g.n
-    src = np.asarray(g.edge_src)[: g.m]
-    dst = np.asarray(g.edge_dst)[: g.m]
-    deg = np.asarray(g.out_deg)[:n].astype(np.float64)
-    inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
-    P = sp.coo_matrix((inv[src], (src, dst)), shape=(n, n)).tocsr()
-    dangling = deg == 0
-    out = np.zeros((len(sources), g.n_pad), np.float32)
-    for i, s in enumerate(sources):
-        p = np.zeros(n)
-        r = np.zeros(n)
-        r[int(s)] = 1.0
-        for _ in range(iters):
-            p += alpha * r
-            rem = (1 - alpha) * r
-            dm = rem[dangling].sum()
-            r = rem @ P
-            r[int(s)] += dm
-        out[i, :n] = p
-    return out
-
-
 # --------------------------------------------------------------------------
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=65536)
     ap.add_argument("--deg", type=int, default=16)
-    # serving-batch knee measured on TPU v5e: 442 qps at B=256, 533 at 512,
-    # 628 at 1024; the round-5 re-probe at H=4096 measured 651.1 qps at
-    # B=2048 vs 621.2 at 1024 (results/hub_knee_b2048.json) — default to
-    # the re-measured knee
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--eps", type=float, default=0.5)
     ap.add_argument("--k", type=int, default=10)
@@ -181,6 +151,7 @@ def main():
         args.cpu_queries, args.acc_queries = 1, 4
 
     import jax
+    import jax.numpy as jnp
 
     from ppr_tpu.utils.cache import enable_compilation_cache
 
@@ -188,7 +159,10 @@ def main():
 
     from ppr_tpu.models import AlgoConf
     from ppr_tpu.models.power_method import power_method_batch
-    from ppr_tpu.ops.topk import topk_ids_with_ties
+    from ppr_tpu.ops.topk import (
+        topk_ids_with_ties,
+        topk_ids_with_ties_from_pairs,
+    )
     from ppr_tpu.utils.metrics import precision_at_k
 
     ds = build_dataset(args.n, args.deg)
@@ -199,102 +173,54 @@ def main():
     conf = AlgoConf(args.alpha, seed=7)
     fora = conf.set_conf_fora_topk(ds, args.k)
     if not args.no_hub_split:
-        # dense-hub hybrid SpMV, bf16 hub matrix: 2.5x per annealed-loop
-        # sweep (PERF.md). The hub-count knee is batch-dependent: the
-        # round-4 probe at B=1024 measured H=4096 fastest (629.0 qps vs
-        # 610.9 at 8192 / 522.7 at 16384, results/hub_knee_r4.json) while
-        # the marginal-benefit auto rule lands at ~8832 on this graph —
-        # past the knee the hub matmul is FLOP-bound and extra columns
-        # cost more than the tail indices they remove. Use the measured
-        # knee at the bench batch; auto elsewhere.
-        import jax.numpy as jnp
-
-        hubs = args.hub_split if args.hub_split is not None \
-            else (4096 if args.batch >= 1024 else "auto")
-        fora.enable_hub_split(hubs, dtype=jnp.bfloat16)
-
-    # warmup (compile) then timed runs. If the device path fails outright
-    # (e.g. remote-compile outage), still emit a valid result line from the
-    # CPU engine so the run records something rather than nothing.
-    try:
-        from ppr_tpu.ops.topk import topk_ids_with_ties_from_pairs
-
-        fora.compute_topk_ids_batch(sources, args.k, args.eps)
-        t0 = time.perf_counter()
-        vals, ids = fora.compute_topk_ids_batch(sources, args.k, args.eps)
-        tpu_s = time.perf_counter() - t0
-        # tie tolerance = eps*min_delta: estimates of an exact oracle tie at
-        # the k-th value can split by float noise far below the algorithm's
-        # eps*delta accuracy bound; the raw (tol=0) sets are also reported
-        tie_tol = args.eps * (1.0 / g.n)
-        n_acc = min(args.batch, args.acc_queries)
-        algo_ids_rows = [
-            topk_ids_with_ties_from_pairs(vals[i], ids[i], args.k,
-                                          tol=tie_tol)
-            for i in range(n_acc)
-        ]
-        algo_ids_rows_raw = [
-            topk_ids_with_ties_from_pairs(vals[i], ids[i], args.k)
-            for i in range(n_acc)
-        ]
-        # tie sets that could extend past the device selection window get
-        # exact (dense) recomputation so reported recall is never understated
-        overflow = [
-            i for i in range(n_acc)
-            if len(algo_ids_rows[i]) == vals.shape[1] and vals[i][-1] > 0.0
-        ]
-        if overflow:
-            dense_rows = fora.compute_topk_batch(
-                sources[overflow], args.k, args.eps
-            )
-            for j, i in enumerate(overflow):
-                algo_ids_rows[i] = topk_ids_with_ties(
-                    dense_rows[j], args.k, tol=tie_tol
-                )
-                algo_ids_rows_raw[i] = topk_ids_with_ties(
-                    dense_rows[j], args.k
-                )
-        device = str(jax.devices()[0])
-    except Exception as e:  # noqa: BLE001
-        # the jax backend cannot be switched mid-process; fall back to the
-        # pure-numpy engine so the run still records a valid line
-        print(f"device path failed ({type(e).__name__}: {e}); "
-              "falling back to numpy engine", file=sys.stderr)
-        cpu_engine = CpuFora(ds, args.alpha, args.k)
-        crng_fb = np.random.default_rng(7)
-        t0 = time.perf_counter()
-        rows = [
-            cpu_engine.topk(int(s), args.eps, crng_fb)
-            for s in sources[: max(args.cpu_queries, 2)]
-        ]
-        tpu_s = (time.perf_counter() - t0) * args.batch / len(rows)
-        pad = np.zeros((len(rows), g.n_pad - g.n), np.float32)
-        scores = np.concatenate(
-            [np.stack(rows).astype(np.float32), pad], axis=1
+        # dense-hub hybrid SpMV, bf16 hub matrix, auto hub count
+        fora.enable_hub_split(
+            args.hub_split if args.hub_split is not None else "auto",
+            dtype=jnp.bfloat16,
         )
-        sources = sources[: len(rows)]
-        tie_tol = args.eps * (1.0 / g.n)
-        algo_ids_rows = [
-            topk_ids_with_ties(scores[i], args.k, tol=tie_tol)
-            for i in range(min(len(rows), args.acc_queries))
-        ]
-        algo_ids_rows_raw = [
-            topk_ids_with_ties(scores[i], args.k)
-            for i in range(min(len(rows), args.acc_queries))
-        ]
-        device = "cpu-fallback"
-    tpu_qps = args.batch / tpu_s
+
+    # warmup (compile) then one timed run
+    fora.compute_topk_ids_batch(sources, args.k, args.eps)
+    t0 = time.perf_counter()
+    vals, ids = fora.compute_topk_ids_batch(sources, args.k, args.eps)
+    device_s = time.perf_counter() - t0
+    # tie tolerance = eps*min_delta: estimates of an exact oracle tie at
+    # the k-th value can split by float noise far below the algorithm's
+    # eps*delta accuracy bound; the raw (tol=0) sets are also reported
+    tie_tol = args.eps * (1.0 / g.n)
+    n_acc = min(args.batch, args.acc_queries)
+    algo_ids_rows = [
+        topk_ids_with_ties_from_pairs(vals[i], ids[i], args.k, tol=tie_tol)
+        for i in range(n_acc)
+    ]
+    algo_ids_rows_raw = [
+        topk_ids_with_ties_from_pairs(vals[i], ids[i], args.k)
+        for i in range(n_acc)
+    ]
+    # tie sets that could extend past the device selection window get
+    # exact (dense) recomputation so reported recall is never understated
+    overflow = [
+        i for i in range(n_acc)
+        if len(algo_ids_rows[i]) == vals.shape[1] and vals[i][-1] > 0.0
+    ]
+    if overflow:
+        dense_rows = fora.compute_topk_batch(
+            sources[overflow], args.k, args.eps
+        )
+        for j, i in enumerate(overflow):
+            algo_ids_rows[i] = topk_ids_with_ties(
+                dense_rows[j], args.k, tol=tie_tol
+            )
+            algo_ids_rows_raw[i] = topk_ids_with_ties(dense_rows[j], args.k)
+    device_qps = args.batch / device_s
+    dev = jax.devices()[0]
 
     # accuracy vs exact power iteration
     acc_sources = sources[: args.acc_queries]
-    if device == "cpu-fallback":
-        oracle = _numpy_oracle(ds, acc_sources, args.alpha)
-    else:
-        oracle = np.asarray(
-            power_method_batch(
-                g, np.asarray(acc_sources, np.int32), args.alpha, 100
-            )
-        )
+    oracle = np.asarray(
+        power_method_batch(g, np.asarray(acc_sources, np.int32), args.alpha,
+                           100)
+    )
     precs, precs_raw = [], []
     for i in range(min(len(acc_sources), len(algo_ids_rows))):
         gnd = topk_ids_with_ties(oracle[i], args.k)
@@ -313,16 +239,17 @@ def main():
 
     print(json.dumps({
         "metric": "fora_topk_queries_per_sec",
-        "value": round(tpu_qps, 3),
+        "value": round(device_qps, 3),
         "unit": "queries/s",
-        "vs_baseline": round(tpu_qps / cpu_qps, 3),
+        "vs_baseline": round(device_qps / cpu_qps, 3),
         "recall_at_10": round(recall, 4),
         "recall_at_10_raw": round(recall_raw, 4),
         "acc_queries": len(precs),
         "cpu_queries": args.cpu_queries,
         "cpu_baseline_qps": round(cpu_qps, 3),
         "graph": {"n": g.n, "m": g.m},
-        "device": device,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
     return 0
 

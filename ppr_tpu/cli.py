@@ -24,7 +24,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ppr_tpu",
-        description="TPU-native Personalized PageRank benchmark harness",
+        description="Personalized PageRank benchmark harness",
     )
     p.add_argument("--alpha", type=float, default=0.15,
                    help="stop probability per walk step (default 0.15)")
@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="query/RNG seed")
     p.add_argument("--sequential", action="store_true",
                    help="time queries one at a time (reference protocol) "
-                        "instead of the batched TPU-native path")
+                        "instead of the batched device path")
     p.add_argument("--sweep", default=None,
                    help="sweep spec name (got/blogcatalog/flickr/grqc/amazon)")
     p.add_argument("--out-dir", default=".",
@@ -72,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default=None, metavar="DxG",
                    help="run every algorithm (incl. preprocessing sweeps) on "
                         "a (data=D, graph=G) device mesh, e.g. --mesh 1x1 "
-                        "(one chip through the sharded engines) or "
+                        "(one device through the sharded engines) or "
                         "--mesh 4x2; D*G must not exceed jax.device_count()")
     return p
 
@@ -133,6 +133,9 @@ def load_dataset(db: str, rel: str | None = None):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from .harness import PerfHarness
+    from .utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     dataset = load_dataset(args.db, rel=args.rel)
     print(f"Loaded dataset '{dataset.name}': {dataset.graph.n} nodes, "

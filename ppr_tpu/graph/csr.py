@@ -1,6 +1,6 @@
-"""Array-native graph store for TPU Personalized PageRank.
+"""Array-native graph store for batched Personalized PageRank.
 
-This is the TPU-native replacement of the reference's in-memory "HeavyGraph"
+This is the array replacement of the reference's in-memory "HeavyGraph"
 snapshot (reference: PPR.java:141-147, loaded via
 ``GraphLoader(...).load(HeavyGraphFactory.class)``). Instead of a Java object
 with per-node adjacency iterators (``degree``/``getTarget``/
@@ -9,7 +9,7 @@ arrays so every algorithm is expressible as gathers, segment-sums and matmuls
 under ``jax.jit``:
 
 * CSR out-adjacency (``indptr``/``indices``) drives the vectorized
-  random-walk kernel (uniform out-neighbor selection, the TPU equivalent of
+  random-walk kernel (uniform out-neighbor selection, the array equivalent of
   ``adjM.getTarget(v, rand, OUTGOING)`` in Monte_Carlo.java:84).
 * A COO edge list (``edge_src``/``edge_dst``) drives the push kernels: one
   forward-push sweep is a masked gather + segment-sum scatter, replacing the
@@ -18,15 +18,16 @@ under ``jax.jit``:
   ``edge_src`` instead of ``edge_dst``.
 * An optional dense transition matrix ``dense_out`` (row v holds
   (1-alpha)-unscaled 1/d_v at out-neighbors) maps the 100-iteration power
-  method (Power_Method.java:55-100) onto the MXU as plain ``[B, n] @ [n, n]``
-  matmuls for small/medium graphs.
+  method (Power_Method.java:55-100) onto plain ``[B, n] @ [n, n]`` matmuls
+  for small/medium graphs.
 
 Node ids are the dense mapped ids 0..n-1 (the reference's ``toMappedNodeId``
 space); the loader keeps the original-id mapping on the host side
 (graph/io.py), mirroring HeavyGraph's long<->int id map.
 
-Padding: ``n_pad``/``m_pad`` round n and m up to multiples of 128 so node
-vectors and edge arrays tile onto the VPU/MXU lanes. Padded nodes are
+Padding: ``n_pad``/``m_pad`` round n and m up to multiples of 128, so the
+array shapes (and with them the compiled programs) change only in steps of
+128, and a sentinel node always exists past the real ones. Padded nodes are
 isolated (degree 0) and padded edges carry ``edge_src = edge_dst = n_pad-1``
 with ``edge_mask = 0`` so they contribute nothing to segment-sums.
 """
@@ -39,7 +40,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-LANES = 128  # last-dim tiling unit on TPU (see pallas guide: tile lane = 128)
+LANES = 128  # padding unit of node and edge arrays (see the module docstring)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -73,7 +74,7 @@ class Graph:
     in_deg: jax.Array       # int32[n_pad]
     node_mask: jax.Array    # float32[n_pad]; 1.0 for real nodes
 
-    # --- optional dense operator for MXU execution (None for large graphs) ---
+    # --- optional dense operator for matmul execution (None for large graphs) ---
     dense_out: jax.Array | None  # float32[n_pad, n_pad]; row v = 1/d_v at out-nbrs
 
     # --- static metadata ---
@@ -126,7 +127,7 @@ def build_graph(
     edges).
 
     When ``n_pad <= dense_threshold`` a dense row-normalized out-operator is
-    also materialized so push/power iterations run as MXU matmuls.
+    also materialized so push/power iterations run as dense matmuls.
     """
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)

@@ -4,7 +4,7 @@ Replaces the reference's entire L0 storage layer (the embedded Neo4j database
 opened at PPR.java:52-60 plus the ``neo4j-admin import``'ed store in
 ``target/got.db``): the CSV pair that the reference imports into Neo4j
 (README.md:17-20, ``dataset/got/GOT_Nodes.csv`` / ``GOT_Rels.csv``) is loaded
-directly into the array Graph — there is no database in the TPU engine.
+directly into the array Graph — there is no database in this engine.
 
 The node-name lookup that the reference does through a Neo4j transaction
 (Algo_Util.getNodeName, Algo_Util.java:21-30) becomes a plain host-side

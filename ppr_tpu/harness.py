@@ -14,7 +14,7 @@ Reference: Gen_Util.java —
   arrays live at :451-478 and the four other datasets' sweeps (kept as
   comments in the reference, :334-449) are first-class specs here.
 
-Two timing modes: ``batched=True`` measures the TPU-native path (all Q
+Two timing modes: ``batched=True`` measures the batched device path (all Q
 queries in one device batch — per-query time = batch time / Q);
 ``batched=False`` replicates the reference protocol of timing each query
 alone (Gen_Util.java:146-151).
@@ -245,7 +245,7 @@ class PerfHarness:
             ):
                 # compile-warm the prep programs untimed (mirrors the query
                 # warmup below): first-param prep rows used to be
-                # compile-dominated (VERDICT r2 weak item 5); a store that
+                # compile-dominated; a store that
                 # fully resumes does no device work, so no warm either
                 if algo_type == AlgoType.BASE_WHOLE_GRAPH:
                     algo.warm_preprocessing(

@@ -9,7 +9,7 @@ interface — it is only driven by Base_Whole_Graph — and the same holds here:
 :class:`BackwardSearch` exposes the batched kernel used by
 :mod:`ppr_tpu.models.base_allpair`.
 
-TPU design: a ``[T, n_pad]`` residue matrix runs masked reverse sweeps for T
+Design: a ``[T, n_pad]`` residue matrix runs masked reverse sweeps for T
 targets simultaneously (:func:`ppr_tpu.ops.push.backward_push_sweeps`) — the
 reference loops over targets one at a time (Base_Whole_Graph.java:76-92).
 """

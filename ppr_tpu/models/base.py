@@ -10,7 +10,7 @@ Parity with the reference's three capability contracts:
   ``preprocessing`` / ``readPreprocessedPPR`` / ``getPrepSize`` /
   ``deletePrepDir``
 
-The TPU engine's native query unit is a *batch* of sources — algorithms
+The engine's native query unit is a *batch* of sources — algorithms
 implement ``compute_whole_graph_batch`` / ``compute_topk_batch`` returning
 dense ``[B, n_pad]`` score matrices, and the single-query reference-style
 methods are thin adapters over a batch of one. Results are dense arrays;
@@ -45,7 +45,7 @@ class PPRAlgorithm:
         self._key, sub = jax.random.split(self._key)
         return sub
 
-    # --- batched API (the TPU-native surface) ----------------------------
+    # --- batched API (the device-native surface) -------------------------
     def compute_whole_graph_batch(self, sources: np.ndarray, param) -> np.ndarray:
         raise NotImplementedError
 

@@ -9,7 +9,7 @@ descending for top-k mode (:133-162). Queries are pure file reads
 (``computeWholeGraphPPR`` :167-186; ``getTopKNodeIds`` returns file order,
 :207-210).
 
-TPU design: targets are processed in device batches of T simultaneous
+Design: targets are processed in device batches of T simultaneous
 reverse pushes (``[T, n_pad]`` residue matrix — the reference does one
 target at a time), transposed/thresholded on the host, and persisted in the
 sharded npz store. The target sweep is resumable per batch (the

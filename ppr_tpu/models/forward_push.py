@@ -4,7 +4,7 @@ Reference: Forward_Push.java — whole-graph variant at :63-142 (queue-driven
 residue/reserve updates gated by r(v)/d_out(v) >= rmax) and the resumable
 top-k variant at :144-250 (reused by FORA top-k). Parameter: ``rmax``.
 
-TPU design: the queue becomes the frontier-masked synchronous sweep kernel
+Design: the queue becomes the frontier-masked synchronous sweep kernel
 (:func:`ppr_tpu.ops.push.forward_push_sweeps`), batched over sources. The
 whole-graph fixpoint (no node above the gate; dangling residue returned to
 the source) matches the reference's invariants; top-k is the whole-graph

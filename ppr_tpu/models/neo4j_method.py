@@ -7,7 +7,7 @@ accuracy knob is the iteration count, then normalizes scores to sum 1 and
 drops zeros (``buildPPRMap``, :80-99). The library iteration ignores
 dangling-node mass (it simply leaks and is repaired by the normalization).
 
-TPU design: the same engine as the power-iteration kernel — a config of
+Design: the same engine as the power-iteration kernel — a config of
 :func:`ppr_tpu.ops.spmv.push_out`:
 
     x_{t+1} = (1-d) * e_s + d * P^T x_t,    x_0 = (1-d) * e_s
@@ -52,7 +52,6 @@ def personalized_pagerank_batch(
 class Neo4jMethod(PreprocessingMixin, PPRAlgorithm):
     name = "Neo4j-Method"
     prep_dirname = "Neo4j_Method_ppr_results"
-    use_pallas = True
 
     def compute_whole_graph_batch(self, sources: np.ndarray, param) -> np.ndarray:
         return np.asarray(self.compute_whole_graph_device(sources, param))
@@ -60,22 +59,7 @@ class Neo4jMethod(PreprocessingMixin, PPRAlgorithm):
     def compute_whole_graph_device(self, sources: np.ndarray, param):
         """Device-resident scores (preprocessing compaction consumers skip
         the dense host copy)."""
-        from ..ops import pallas_dense
-
-        iterations = int(param)
         damping = 1.0 - self.alpha  # Neo4j damping = 1 - alpha (Neo4j_Method.java:75)
-        sources_j = jnp.asarray(sources, jnp.int32)
-        if (self.use_pallas and pallas_dense.supports(self.graph)
-                and jax.default_backend() != "cpu"):
-            onehot = jax.nn.one_hot(sources_j, self.graph.n_pad,
-                                    dtype=jnp.float32)
-            x = pallas_dense.dense_pagerank_iterations(
-                self.graph, onehot, damping, iterations
-            )
-            total = jnp.sum(x, axis=-1, keepdims=True)
-            out = jnp.where(total > 0, x / total, x)
-        else:
-            out = personalized_pagerank_batch(
-                self.graph, sources_j, damping, iterations
-            )
-        return out
+        return personalized_pagerank_batch(
+            self.graph, jnp.asarray(sources, jnp.int32), damping, int(param)
+        )

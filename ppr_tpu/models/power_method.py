@@ -7,12 +7,12 @@ iterations: every node with residue transfers alpha*r to its reserve and
 whole-graph result thresholded at the k-th value with ties
 (Power_Method.java:145-165).
 
-TPU design: the per-iteration HashMap scatter becomes one
-:func:`ppr_tpu.ops.spmv.push_out` application over a ``[B, n_pad]`` residue
-matrix — on small graphs a dense ``[B, n] @ [n, n]`` MXU matmul — iterated a
-static 100 times under ``lax.fori_loop``, batched over all B query sources
-at once (the reference recomputes the oracle per query sequentially,
-Gen_Util.java:154).
+Design: the per-iteration HashMap scatter becomes one
+:func:`ppr_tpu.ops.spmv.push_out_t` application over a ``[n_pad, B]``
+residue matrix — on small graphs a dense ``[n, n] x [n, B]`` matmul at
+``Precision.HIGHEST`` — iterated a static 100 times under
+``lax.fori_loop``, batched over all B query sources at once (the reference
+recomputes the oracle per query sequentially, Gen_Util.java:154).
 """
 
 from __future__ import annotations
@@ -31,9 +31,8 @@ from .base import PPRAlgorithm
 def power_method_batch(g, sources, alpha, iterations: int = 100):
     """Dense f32[B, n_pad] PPR for a batch of sources (see `_power_method_jit`).
 
-    Pads the batch up to 8 rows: B < 8 leaves the [n_pad, B] state narrower
-    than a vector sublane tile, which has faulted the remote TPU worker on
-    million-node graphs (B=4 crashed reproducibly; B>=8 never has)."""
+    Pads the batch up to 8 rows, so that every batch below 8 shares one
+    compiled program."""
     sources = jnp.asarray(sources, jnp.int32)
     b = sources.shape[0]
     if b == 0:
@@ -81,26 +80,12 @@ class PowerMethod(PPRAlgorithm):
     name = "Exact"
 
     def __init__(self, dataset, alpha: float, *, iterations: int = 100,
-                 seed: int = 0, use_pallas: bool = True):
+                 seed: int = 0):
         super().__init__(dataset, alpha, seed=seed)
         self.iterations = iterations
-        self.use_pallas = use_pallas
 
     def compute_whole_graph_batch(self, sources: np.ndarray, param=None) -> np.ndarray:
-        from ..ops import pallas_dense
-
-        sources_j = jnp.asarray(sources, jnp.int32)
-        if (self.use_pallas and pallas_dense.supports(self.graph)
-                and jax.default_backend() != "cpu"):
-            # fused on-chip kernel: operator + batch state stay in VMEM for
-            # all iterations (ops/pallas_dense.py)
-            onehot = jax.nn.one_hot(sources_j, self.graph.n_pad,
-                                    dtype=jnp.float32)
-            out = pallas_dense.dense_power_iterations(
-                self.graph, onehot, self.alpha, self.iterations
-            )
-        else:
-            out = power_method_batch(
-                self.graph, sources_j, self.alpha, self.iterations
-            )
-        return np.asarray(out)
+        return np.asarray(power_method_batch(
+            self.graph, jnp.asarray(sources, jnp.int32), self.alpha,
+            self.iterations,
+        ))

@@ -1,7 +1,7 @@
 // Native graph-builder: CSV/edge-list -> CSR/COO arrays.
 //
 // The reference's ingestion path is the Neo4j store import plus the
-// HeavyGraph bulk load (PPR.java:141-147) — both JVM machinery. The TPU
+// HeavyGraph bulk load (PPR.java:141-147) — both JVM machinery. This
 // engine replaces them with this small C++ runtime: a counting-sort CSR
 // builder and a zero-copy edge-list parser, O(n + m) with no Python-object
 // overhead, so million/billion-edge graphs load at memory bandwidth before

@@ -1,16 +1,17 @@
-"""Hub-split hybrid SpMV: dense MXU columns for high-in-degree hubs.
+"""Hub-split hybrid SpMV: dense matmul columns for high-in-degree hubs.
 
-TPU sparse ops are index-rate-bound (~10 ns per edge index — PERF.md), so
-the way to make a push sweep cheaper is to *remove edge indices from the
-sparse path*. In power-law graphs a few hundred hub nodes receive a large
-fraction of all edges; their incoming contributions are a dense reduction:
+A sparse push sweep pays per edge (a gather and a segmented reduction per
+edge and row), so one way to make a sweep cheaper is to *remove edges from
+the sparse path*. In power-law graphs a few hundred hub nodes receive a
+large fraction of all edges; their incoming contributions are a dense
+reduction:
 
     y[hub_h] = sum_v a[v]/d_v * (#edges v->hub_h)   ==  (a * inv_deg) @ M[:, h]
 
-i.e. one ``[B, n] @ [n, H]`` MXU matmul replaces the segment-sum over every
+i.e. one ``[B, n] @ [n, H]`` matmul replaces the segment-sum over every
 hub-destined edge. The remaining tail edges go through the usual sorted
-segmented reduction. On the 1M-edge benchmark graph the top-512 in-degree
-hubs carry ~45% of edges — roughly halving the index count per sweep.
+segmented reduction. How many hubs pay off depends on the device's sparse
+and memory rates (:func:`auto_num_hubs`).
 
 The hub data lives in its own small pytree (:class:`HubSplit`) next to the
 Graph, so enabling it does not change the Graph pytree (and therefore does
@@ -30,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..graph.csr import Graph
+from ..utils.devices import device_rates
 from .spmv import _safe_inv_deg
 
 
@@ -48,20 +50,25 @@ def auto_num_hubs(
     g: Graph,
     dtype=np.float32,
     *,
-    tail_ns_per_edge: float = 12.0,
-    hbm_gbps: float = 800.0,
+    tail_ns_per_edge: float | None = None,
+    mem_bytes_per_s: float | None = None,
     max_matrix_bytes: int = 4 << 30,
 ) -> int:
     """Marginal-benefit hub count: include node v as a hub while the sparse
     cost of its incoming edges (``in_deg(v) * tail_ns_per_edge``) exceeds
-    the per-sweep HBM cost of one more dense matrix column
-    (``n_pad * itemsize / bandwidth``). Constants measured on TPU v5e
-    (PERF.md); the rule only needs them to within ~2x.
+    the per-sweep memory cost of one more dense matrix column
+    (``n_pad * itemsize / bandwidth``). Both rates default to the device
+    table's (:mod:`ppr_tpu.utils.devices`); the rule only needs them to
+    within ~2x.
 
     Capped so the matrix stays under ``max_matrix_bytes``; rounded to a
-    multiple of 128 lanes."""
+    multiple of 128 columns."""
+    if not (tail_ns_per_edge and mem_bytes_per_s):
+        rates = device_rates()
+        tail_ns_per_edge = tail_ns_per_edge or rates.spmv_ns_per_edge
+        mem_bytes_per_s = mem_bytes_per_s or rates.mem_bytes_per_s
     itemsize = np.dtype(dtype).itemsize if dtype != jnp.bfloat16 else 2
-    col_ns = g.n_pad * itemsize / hbm_gbps  # bytes / (GB/s) == ns
+    col_ns = g.n_pad * itemsize / mem_bytes_per_s * 1e9
     min_deg = max(col_ns / tail_ns_per_edge, 1.0)
     in_deg = np.asarray(g.in_deg)[: g.n]
     h = int((in_deg > min_deg).sum())
@@ -74,8 +81,8 @@ def build_hub_split(
 ) -> HubSplit:
     """Host-side construction from the dst-sorted edge view.
 
-    ``dtype=jnp.bfloat16`` halves the hub matrix's per-sweep HBM read and
-    runs the matmul at the MXU's native bf16 rate. Edge multiplicities are
+    ``dtype=jnp.bfloat16`` halves the hub matrix's per-sweep memory read
+    and runs the matmul at the bf16 rate. Edge multiplicities are
     small integers (exact in bf16 up to 256); the only precision loss is the
     bf16 cast of the scaled residue operand (~2^-9 relative), well inside
     FORA's eps-approximation budget.
@@ -120,6 +127,12 @@ def build_hub_split(
     )
 
 
+def _precision(dtype):
+    """f32 hub matrices multiply at full f32 precision (the default may
+    round operands, to TF32 on Hopper); bf16 ones stay bf16 products."""
+    return jax.lax.Precision.HIGHEST if dtype == jnp.float32 else None
+
+
 def push_out_hybrid(g: Graph, hs: HubSplit, a: jax.Array) -> jax.Array:
     """``push_out`` semantics via dense hub matmul + sparse tail reduction."""
     inv_deg = _safe_inv_deg(g.out_deg)
@@ -131,7 +144,8 @@ def push_out_hybrid(g: Graph, hs: HubSplit, a: jax.Array) -> jax.Array:
     hub_vals = jnp.matmul(
         scaled.astype(hs.hub_matrix.dtype), hs.hub_matrix,
         preferred_element_type=jnp.float32,
-    )                                                   # [B, H] on the MXU
+        precision=_precision(hs.hub_matrix.dtype),
+    )                                                   # [B, H]
 
     scaled_t = jnp.moveaxis(scaled, -1, 0)              # [n_pad, B]
     contrib_t = jnp.take(scaled_t, hs.tail_src, axis=0)
@@ -155,10 +169,8 @@ def push_out_hybrid_t(g: Graph, hs: HubSplit, a_t: jax.Array, *,
 
     ``num_chunks > 1`` processes the TAIL edges in sequential lax.scan
     chunks, bounding the per-edge intermediate to ``[m_tail/num_chunks,
-    B]`` — at the 1M-node scale even the post-hub tail (~4.5M edges)
-    times B=512 is a 9 GB gather that RESOURCE_EXHAUSTs a single chip
-    (results/scale_1m_knee.json round-5 sweep); the hub matmul is
-    unaffected.
+    B]`` — at the 1M-node scale even the post-hub tail times a wide batch
+    is a gather of many gigabytes; the hub matmul is unaffected.
     """
     inv_deg = _safe_inv_deg(g.out_deg)
     scaled_t = a_t * inv_deg[:, None]                   # [n_pad, B] f32
@@ -168,7 +180,8 @@ def push_out_hybrid_t(g: Graph, hs: HubSplit, a_t: jax.Array, *,
     hub_vals_t = jax.lax.dot_general(
         lhs, rhs, (((0,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
-    )                                                   # [H, B] on the MXU
+        precision=_precision(lhs.dtype),
+    )                                                   # [H, B]
 
     if num_chunks <= 1:
         contrib_t = jnp.take(scaled_t, hs.tail_src, axis=0)

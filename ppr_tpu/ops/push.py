@@ -1,6 +1,6 @@
 """Frontier-masked synchronous push sweeps (forward and backward).
 
-TPU-native re-design of the reference's queue-driven local-push loops:
+Array re-design of the reference's queue-driven local-push loops:
 
 * Forward push (Forward_Push.java:63-142 whole-graph, :144-250 resumable
   top-k): the work queue ``Q`` with gate ``r(v)/d_out(v) >= rmax`` becomes a

@@ -14,15 +14,13 @@ operators over batched node vectors ``a`` of shape ``[..., n_pad]``:
 
 Two execution backends, picked per graph:
 
-* **dense** (``g.dense_out`` present): a single ``[B, n] @ [n, n]`` matmul on
-  the MXU — optimal for small/medium graphs where the row-normalized operator
-  fits in HBM (the GOT benchmark graph is a 128x128 f32 matrix).
+* **dense** (``g.dense_out`` present): a single ``[B, n] @ [n, n]`` matmul —
+  for small/medium graphs where the row-normalized operator fits in device
+  memory (the GOT benchmark graph is a 128x128 f32 matrix).
 * **coo**: gather along ``edge_src``/``edge_dst`` + scatter-add, which XLA
   lowers to vectorized dynamic-slice/scatter; used for large graphs where a
-  dense operator is infeasible. (A fused Pallas sparse kernel was probed and
-  is currently impossible — Mosaic lacks big-table axis-0 gathers, PERF.md —
-  so the million-edge regime uses the sorted-segment-sum path plus the
-  dense-hub hybrid in ops/hub_split.py.)
+  dense operator is infeasible. The million-edge regime uses the
+  sorted-segment-sum path plus the dense-hub hybrid in ops/hub_split.py.
 
 Both backends are linear, mask padding edges, and drop mass at dangling
 nodes (callers re-inject dangling mass per algorithm semantics — to the
@@ -47,10 +45,11 @@ def push_out(g: Graph, a: jax.Array, *, backend: str | None = None) -> jax.Array
     if backend is None:
         backend = "dense" if g.has_dense else "coo_sorted"
     if backend == "dense":
-        # Precision.HIGHEST: the TPU's default matmul truncates f32 inputs
-        # to bf16, which costs ~2.5e-3 of mass per propagation pass — fatal
-        # for an oracle. The dense backend only triggers on small graphs,
-        # where full-precision passes are still instant on the MXU.
+        # Precision.HIGHEST: a default-precision f32 matmul may round its
+        # inputs (to TF32 on Hopper, to bf16 elsewhere), which costs up to
+        # ~2.5e-3 of mass per propagation pass — fatal for an oracle. The
+        # dense backend only triggers on small graphs, where full-precision
+        # passes stay cheap.
         return jnp.matmul(a, g.dense_out, preferred_element_type=jnp.float32,
                           precision=jax.lax.Precision.HIGHEST)
     inv_deg = _safe_inv_deg(g.out_deg)

@@ -1,6 +1,6 @@
 """Vectorized alpha-terminated random-walk kernel.
 
-TPU-native re-design of the reference's per-walk inner loops
+Array re-design of the reference's per-walk inner loops
 (Monte_Carlo.random_walk, Monte_Carlo.java:60-94, and
 random_walk_no_zero_hop, :96-133): instead of one Java while-loop per walk,
 ``W`` walkers advance in lockstep as int32 lanes. Per step each active walker
@@ -154,7 +154,7 @@ def weighted_walk_counts(
     has decayed to ~(1-alpha)^phase_steps, so the still-active walkers are
     compacted (stable argsort on the active mask) into a lane array
     ``compact_factor``x narrower, cutting the random-gather traffic that
-    dominates walk cost on TPU. Stopped walkers deposit their weight at
+    dominates walk cost. Stopped walkers deposit their weight at
     their stop node when their phase ends.
 
     The compacted width is a hard cap: with phase_steps=16 the expected

@@ -20,4 +20,4 @@ from .node_sharded_allpair import (  # noqa: F401
     node_sharded_base_allpair,
 )
 from .mesh_algos import mesh_algo_obj  # noqa: F401
-from .comm_model import predict_sweep, two_host_prediction  # noqa: F401
+from .comm_model import four_card_prediction, predict_sweep  # noqa: F401

@@ -2,10 +2,9 @@
 
 A multi-host mesh needs no algorithm changes: `jax.distributed.initialize`
 makes every host see the global device set, and the (data, graph) mesh in
-:mod:`ppr_tpu.parallel.sharded` spans hosts transparently — collectives ride
-ICI within a slice and DCN across slices. This module just wraps the
-boilerplate (env-driven coordinator discovery) and offers a global mesh
-constructor.
+:mod:`ppr_tpu.parallel.sharded` spans hosts transparently. This module just
+wraps the boilerplate (an explicit coordinator from env vars) and offers a
+global mesh constructor.
 
 The reference has no distributed story at all (single JVM, SURVEY.md §2);
 this is net-new capability.
@@ -23,9 +22,9 @@ from .sharded import make_mesh
 def initialize_from_env() -> bool:
     """Initialize ``jax.distributed`` from standard env vars when present.
 
-    Uses ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``
-    (or their auto-detected cloud equivalents). Returns True when a
-    multi-process runtime was initialized, False for single-process runs.
+    Uses ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``;
+    nothing is auto-detected. Returns True when a multi-process runtime was
+    initialized, False for single-process runs.
     """
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
     nproc = os.environ.get("JAX_NUM_PROCESSES")
@@ -36,12 +35,6 @@ def initialize_from_env() -> bool:
             process_id=int(os.environ.get("JAX_PROCESS_ID", "0")),
         )
         return True
-    try:  # TPU pod auto-detection path (no-op off-pod)
-        if int(os.environ.get("TPU_NUM_PROCESSES", "1")) > 1:
-            jax.distributed.initialize()
-            return True
-    except Exception:
-        pass
     return False
 
 

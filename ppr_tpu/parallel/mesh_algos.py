@@ -1,6 +1,6 @@
 """Mesh-backed drop-ins for every protocol algorithm (harness/CLI `--mesh`).
 
-VERDICT r2 gap 4: only FORA top-k (sharded_fora) and BASE (sharded_allpair)
+Without these, only FORA top-k (sharded_fora) and BASE (sharded_allpair)
 could run on a device mesh; the preprocessing sweeps of FORA whole-graph
 (Fora_Whole_Graph.java:82-146), Forward Push (Forward_Push.java:63-142),
 Neo4j-method (Neo4j_Method.java:67-99) and Monte-Carlo
@@ -383,8 +383,8 @@ class MeshForaWholeGraph(ForaWholeGraph):
 
         _, p_t, r_t, onehot_t = self._kern.prepare(sources_p,
                                                    init_shortcircuit=True)
-        # untimed warmup: the first push call's jit compile (minutes on a
-        # cold remote cache) must never pollute the push/completion balance
+        # untimed warmup: the first push call's jit compile must never
+        # pollute the push/completion balance
         # — same guard as the single-device engine's _WARMED_PUSH_SHAPES
         if not self._push_warmed:
             jax.block_until_ready(

@@ -120,7 +120,7 @@ def make_node_sharded_annealed_topk(
     'graph'); ``p_local`` is the final reserve sharded (data, graph) —
     [B_local, n_local] per device; ``iters`` the sweep count.
 
-    ``ring_dtype="bf16"`` halves the ring's ICI traffic: the circulating
+    ``ring_dtype="bf16"`` halves the ring's link traffic: the circulating
     residue chunk is cast to bfloat16 for each ``ppermute`` hop and
     widened back to f32 on arrival (accumulation and all decision scalars
     stay f32). Per hop this rounds the transported values once (relative
@@ -128,10 +128,9 @@ def make_node_sharded_annealed_topk(
     rules are threshold-based on eps*delta-scale masses, so the id sets
     are unchanged in practice (equality-tested on the virtual mesh,
     tests/test_ring_bf16.py). The comm model prices it
-    (parallel/comm_model.py: payload_bytes=2) — the round-4 answer to the
-    modeled graph-axis comm wall (VERDICT r3 item 3).
+    (parallel/comm_model.py: payload_bytes=2).
 
-    ``frontier_blocks=C`` (round 5, VERDICT r4 item 3) turns on the
+    ``frontier_blocks=C`` turns on the
     FRONTIER-COMPACTED ring: each device splits its ``n_local`` chunk
     columns into ``num_blocks`` contiguous blocks, selects the ``C``
     blocks carrying the most residue mass this sweep, pushes ONLY those
@@ -147,15 +146,15 @@ def make_node_sharded_annealed_topk(
     dense ring (equality-tested, tests/test_frontier_ring.py). Residue
     mass on power-law graphs concentrates on hub blocks
     (scripts/ring_occupancy.py measures the coverage curve), so small C
-    costs few extra sweeps while dividing the ICI bytes.
+    costs few extra sweeps while dividing the link bytes.
 
     ``block_order="degree"`` (frontier mode's default) permutes each
     shard's chunk columns by descending in-degree before blocking:
     residue mass concentrates on high-in-degree nodes (they receive the
     pushes), but node ids scatter hubs across CONTIGUOUS blocks, which is
-    why id-ordered blocks measure poor mass coverage
-    (results/ring_occupancy.json: coverage(1/8) ~ 0.49 on the 65k
-    headline graph -> 2.4x sweep inflation). Degree-sorting packs the
+    why id-ordered blocks measure poor mass coverage (about half the mass
+    in the top eighth of the blocks on the 65k headline graph, so the
+    sweep count more than doubles). Degree-sorting packs the
     hubs into the leading blocks. The edge gather indices are pre-mapped
     into the permuted basis at build time (:func:`_put_blocks`), so hops
     pay nothing extra; ``block_order="id"`` keeps contiguous blocks.

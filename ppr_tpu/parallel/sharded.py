@@ -1,7 +1,7 @@
 """Multi-device execution: row/edge-sharded push + walk under ``shard_map``.
 
 The reference is a single-threaded JVM program (SURVEY.md §2 parallelism
-table: no DP/TP/PP/collectives of any kind). The TPU engine introduces two
+table: no DP/TP/PP/collectives of any kind). This engine introduces two
 mesh axes:
 
 * ``data`` — query-batch data parallelism: the ``[B, n_pad]``
@@ -10,8 +10,7 @@ mesh axes:
 * ``graph`` — the tensor-parallel analogue for graphs: the COO edge list is
   sharded into contiguous chunks; each device scatters its local edges'
   contributions into a full-width node vector and a ``lax.psum`` over the
-  ``graph`` axis completes the SpMV (1D edge partition + all-reduce, riding
-  ICI). Random-walk phases shard the *walker pool* over ``graph`` (each
+  ``graph`` axis completes the SpMV (1D edge partition + all-reduce). Random-walk phases shard the *walker pool* over ``graph`` (each
   device advances its own walkers over the replicated CSR adjacency) and
   psum the weighted stop counts.
 
@@ -19,10 +18,9 @@ Pipeline/sequence/expert parallelism do not apply to PPR (no layer stack,
 no sequences, no experts) — see SURVEY.md §2.
 
 Node vectors are replicated along ``graph``; this is the standard 1D SpMV
-partition (scaling-book style: pick a mesh, annotate shardings, let
-collectives ride ICI). A 2D node-sharded partition with all-to-all residue
-exchange is the planned next step for graphs whose node vectors exceed one
-device's HBM.
+partition (pick a mesh, annotate shardings, let XLA insert the
+collectives). The node-sharded engines (:mod:`ppr_tpu.parallel.node_sharded`)
+cover graphs whose node vectors exceed one device's memory.
 """
 
 from __future__ import annotations

@@ -13,8 +13,7 @@ sweep scales past one chip:
   contiguous chunks (a contiguous chunk of globally src-sorted edges is
   itself src-sorted, so every local scatter is a sorted segment
   reduction); one ``lax.psum(..., "graph")`` per sweep completes the
-  reverse SpMV (``y[u] = 1/d_out(u) * sum over edges u->v of rem[v]``)
-  over ICI.
+  reverse SpMV (``y[u] = 1/d_out(u) * sum over edges u->v of rem[v]``).
 
 Semantics match :func:`ppr_tpu.ops.push.backward_push_sweeps` exactly —
 strict ``r > rmax`` gate (Backward_Search.java:89-94), mass dying at

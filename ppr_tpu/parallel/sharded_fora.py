@@ -12,7 +12,7 @@ termination when the k-th reserve >= (1+eps')*delta) — end to end on a
 * ``graph`` axis: the dst-sorted COO edge list is 1D-partitioned into
   contiguous chunks; each device computes its chunk's gather + sorted
   segment-sum into a full-width node vector and a single
-  ``lax.psum(..., "graph")`` per sweep completes the SpMV over ICI.
+  ``lax.psum(..., "graph")`` per sweep completes the SpMV.
 
 Everything — propagation sweeps, the annealing schedule, the (1+eps')*delta
 stopping rule, the dangling-to-source mass return (Power_Method.java:74-80),
@@ -209,8 +209,8 @@ class ShardedForaTopk:
 
     # -- batching ----------------------------------------------------------
     def _pad_batch(self, sources: np.ndarray) -> tuple[np.ndarray, int]:
-        """Pad the batch to a multiple of the 'data' axis (and >= 8 rows —
-        see models/fora._pad_sources for the small-batch TPU fault)."""
+        """Pad the batch to a multiple of the 'data' axis (and >= 8 rows,
+        like models/fora._pad_sources)."""
         sources = np.asarray(sources, np.int32)
         b = len(sources)
         unit = self._mesh_shape["data"]

@@ -10,7 +10,7 @@ queries, optionally against a precomputed all-pair store.
     dense = svc.whole_graph([3])             # np.ndarray [B, n]
 
 Algorithm selection mirrors the engine defaults: the FORA top-k serving
-path (annealed deterministic propagation on TPU) for top-k, FORA
+path (annealed deterministic propagation on the device) for top-k, FORA
 whole-graph for dense scores; ``algorithm=`` overrides with any AlgoType.
 """
 
@@ -43,10 +43,10 @@ class PPRService:
                  cohort: bool = False, frontier_blocks: int | None = None):
         """``hub_split=H`` enables the dense-hub hybrid SpMV with H hubs in
         the FORA serving kernels (bf16 hub matrix unless ``hub_dtype``
-        overrides — the measured-fastest serving config on power-law
-        graphs). ``calibrate=True`` measures the real per-walk / per-edge
-        costs on this backend+graph at startup instead of the baked-in
-        constants (PERF.md round-2 roadmap item). ``mesh`` (a
+        overrides; ``hub_split="auto"`` picks the count from the device
+        table's rates). ``calibrate=True`` measures the real per-walk /
+        per-edge costs on this device+graph at startup instead of the
+        device table's rates. ``mesh`` (a
         ``jax.sharding.Mesh`` with 'data'/'graph' axes) runs the FORA
         top-k serving path on the mesh via
         :class:`~ppr_tpu.parallel.sharded_fora.ShardedForaTopk`.
@@ -60,8 +60,8 @@ class PPRService:
         memory per device via the ring-exchange engine). ``cohort=True``
         enables the streaming serving path (:meth:`top_k_stream`): rows
         retire as soon as THEIR annealed loop finishes instead of waiting
-        for the slowest row in the dispatch — the round-4 latency-floor
-        mechanism (VERDICT r3 item 4)."""
+        for the slowest row in the dispatch (the latency-floor
+        mechanism)."""
         self.dataset = dataset
         self.eps = eps
         self.k = k

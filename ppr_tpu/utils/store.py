@@ -1,6 +1,6 @@
 """Persistent PPR result store with resumable batch sweeps.
 
-TPU-native replacement of the reference's preprocessing cache (layer L7):
+Array-engine replacement of the reference's preprocessing cache (layer L7):
 per-source text files ``<nodeId>\\t<ppr>`` under ``<ALGO>_ppr_results/<db>/...``
 (written at Monte_Carlo.java:209-231, Forward_Push.java:317-339,
 Fora_Whole_Graph.java:177-200, Base_Whole_Graph.java:110-163; read back at

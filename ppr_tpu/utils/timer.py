@@ -5,7 +5,7 @@ The reference's only tracing is manual ``System.nanoTime()`` bracketing
 Fora_Whole_Graph.java:89-106 and Fora_Topk.java:181-183; the static
 accumulated duration in Backward_Search.java:36,98-99). :class:`PhaseTimer`
 generalizes that pattern (named accumulating phases, device-synchronized),
-and :func:`trace` wraps ``jax.profiler`` for real TPU traces — the
+and :func:`trace` wraps ``jax.profiler`` for device traces — the
 observability layer the reference lacks (SURVEY.md §5).
 """
 

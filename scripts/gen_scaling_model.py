@@ -1,19 +1,19 @@
-"""Regenerate results/scaling_model.json (round 5).
+"""Four-card scaling prediction for the sharded engines.
 
-Primary block: the historical batch-512 prediction (continuity with the
-round-2..4 artifacts) + the frontier-compacted entry priced at the
-MEASURED (capacity, inflation) point from the matching-batch empirical
-run. Secondary block: batch 1024, where the ring comm exceeds per-sweep
-compute and the frontier ring is the difference between a comm-bound and
-a compute-bound overlap schedule. CPU-only (virtual mesh for the
-breakdown measurement; never touches the TPU).
+Prices one propagation sweep on one card vs four NVLink cards
+(:func:`ppr_tpu.parallel.comm_model.four_card_prediction`) with a device
+table entry, adds the frontier-compacted ring at the MEASURED (capacity,
+inflation) point of a ring-occupancy run (``scripts/ring_occupancy.py``),
+and the measured collective-vs-compute breakdown on the virtual CPU mesh.
+Runs on the CPU only.
 
-Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-     python scripts/gen_scaling_model.py
+Run: python scripts/gen_scaling_model.py \
+         --occupancy ring_occupancy.json --out scaling_model.json
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 from pathlib import Path
@@ -23,25 +23,28 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_num_cpu_devices", 8)
 
 from ppr_tpu.graph.io import synthetic_powerlaw  # noqa: E402
 from ppr_tpu.parallel.comm_model import (  # noqa: E402
+    four_card_prediction,
     measure_breakdown,
     predict_sweep,
-    two_host_prediction,
 )
 from ppr_tpu.parallel.sharded import make_mesh  # noqa: E402
+from ppr_tpu.utils.devices import TABLE  # noqa: E402
 
 
-def pick_frontier(occ_path: str, graph_key: str, g, batch: int) -> dict:
+def pick_frontier(occ_path: str, graph_key: str, g, batch: int,
+                  rates) -> dict:
     occ = json.load(open(occ_path))
     entry = occ["graphs"][graph_key]["empirical"]
     cands = []
     for f in entry["frontier"]:
         pred = predict_sweep(
-            g, engine="node_sharded", s_graph=8, batch=batch,
+            g, engine="node_sharded", s_graph=4, batch=batch,
             payload_bytes=2, capacity_frac=f["capacity_frac"],
-            sweep_inflation=f["sweep_inflation"],
+            sweep_inflation=f["sweep_inflation"], rates=rates,
         )
         cands.append((pred.t_sweep_s, f))
     cands.sort(key=lambda x: x[0])
@@ -49,38 +52,30 @@ def pick_frontier(occ_path: str, graph_key: str, g, batch: int) -> dict:
 
 
 def main() -> int:
-    ds = synthetic_powerlaw(65536, 8, seed=3, dense_threshold=0)
-    g = ds.graph
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device-kind", default="NVIDIA H100 80GB HBM3")
+    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--occupancy", default=None,
+                    help="scripts/ring_occupancy.py output (optional)")
+    ap.add_argument("--out", default="scaling_model.json")
+    args = ap.parse_args()
 
-    out = two_host_prediction(
-        g, batch=512,
-        frontier=pick_frontier("results/ring_occupancy_b512.json",
-                               "synth:65536x8", g, 512),
-    )
-    out["measured_breakdown"] = measure_breakdown(make_mesh(), g, batch=64)
-    out["batch_1024"] = two_host_prediction(
-        g, batch=1024,
-        frontier=pick_frontier("results/ring_occupancy_b1024.json",
-                               "synth:65536x8", g, 1024),
-    )
-    out["notes"] = (
-        "frontier entries use MEASURED degree-sorted block sweep "
-        "inflation (scripts/ring_occupancy.py, virtual 8-dev mesh, "
-        "oracle-checked); at batch 512 ring comm (bf16, 0.65 ms) sits "
-        "below per-sweep compute (0.78 ms) so frontier compaction is a "
-        "modest serial gain; at batch 1024 comm dominates and the "
-        "frontier ring moves the overlap bound from comm-bound back to "
-        "compute-bound"
-    )
-    Path("results/scaling_model.json").write_text(
-        json.dumps(out, indent=1) + "\n"
-    )
-    print("wrote results/scaling_model.json")
-    for name, blk in (("b512", out), ("b1024", out["batch_1024"])):
-        for k in ("node_sharded_2host", "node_sharded_2host_bf16_ring",
-                  "node_sharded_2host_frontier_bf16"):
-            e = blk[k]
-            print(f"{name} {k}: eff {e['efficiency']:.3f} "
+    rates = TABLE[args.device_kind]
+    g = synthetic_powerlaw(65536, 8, seed=3, dense_threshold=0).graph
+    frontier = (pick_frontier(args.occupancy, "synth:65536x8", g,
+                              args.batch, rates)
+                if args.occupancy else None)
+    out = four_card_prediction(g, batch=args.batch, frontier=frontier,
+                               rates=rates)
+    out["measured_breakdown_cpu_mesh"] = measure_breakdown(
+        make_mesh(), g, batch=64)
+    Path(args.out).write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {args.out}")
+    for k in ("node_sharded", "node_sharded_bf16_ring",
+              "node_sharded_frontier_bf16"):
+        e = out[k]
+        if e is not None:
+            print(f"{k}: eff {e['efficiency']:.3f} "
                   f"ov {e['efficiency_overlap']:.3f}")
     return 0
 

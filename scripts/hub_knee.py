@@ -1,15 +1,11 @@
 """Probe the dense-hub count knee at the headline operating point.
 
-PERF.md's 1M-graph note says the remaining single-chip lever is a bigger
-hub matrix (trade MXU time for sparse-tail index count — the tail gather
-is index-rate-bound at ~10 ns/index, payload-width independent, so the
-only way to buy it down is to move more edges into the bf16 MXU matmul).
-Round 3 benched H=8192 because that was the measured knee at B=256; the
-knee can sit higher at B=1024 (more MXU amortization per sweep). This
-probes H in a small ladder and reports qps at the bench batch.
+A bigger hub matrix trades dense matmul time for sparse-tail edges. This
+probes the hub count H in a small ladder on the headline graph and reports
+queries/s at the bench batch.
 
-Run on the real TPU (no other device process): ``python
-scripts/hub_knee.py --out results/hub_knee_r4.json``.
+Run on the device (one process per device): ``python scripts/hub_knee.py
+--out hub_knee.json``.
 """
 
 from __future__ import annotations
@@ -32,7 +28,7 @@ def main(argv=None) -> int:
     ap.add_argument("--hubs", default="4096,8192,16384,32768")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--out", default="results/hub_knee_r4.json")
+    ap.add_argument("--out", default="hub_knee.json")
     args = ap.parse_args(argv)
 
     if args.cpu:

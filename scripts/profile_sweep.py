@@ -1,14 +1,14 @@
-"""Profile propagation-sweep variants on the real TPU.
+"""Profile propagation-sweep variants on the device.
 
 Times the serving path's hot kernel — one residual-propagation sweep over the
 bench graph (n=65536, deg=16, ~1.04M edges) at B=256 — across SpMV variants:
 
 * plain      : sorted-COO segment-sum (transposed layout)
 * hub f32 H  : dense-hub hybrid, f32 hub matrix, H hubs
-* hub bf16 H : same with bf16 hub matrix (half HBM, MXU bf16 rate)
+* hub bf16 H : same with bf16 hub matrix (half the bytes, bf16 matmul)
 
-plus the full annealed top-k loop for chosen variants. Run standalone on the
-TPU (never concurrently with another device process):
+plus the full annealed top-k loop for chosen variants. Run it alone on the
+device (one process per device):
 
     python scripts/profile_sweep.py [--quick]
 """
@@ -60,7 +60,9 @@ def main():
     from ppr_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
-    dev = str(jax.devices()[0])
+    d = jax.devices()[0]
+    dev = {"platform": d.platform, "kind": d.device_kind,
+           "count": len(jax.devices())}
     ds = synthetic_powerlaw(args.n, args.deg, seed=42, dense_threshold=0)
     g = ds.graph
     print(json.dumps({"device": dev, "n": g.n, "m": g.m,

@@ -1,5 +1,5 @@
-"""Residue-frontier occupancy + mass-coverage measurement (round 5,
-VERDICT r4 item 3 — the data behind frontier-compacted ring pricing).
+"""Residue-frontier occupancy + mass-coverage measurement (the data behind
+frontier-compacted ring pricing).
 
 Two measurements per graph:
 
@@ -16,14 +16,14 @@ Two measurements per graph:
   the returned sweep count ratio IS the measured inflation, and the answer
   ids are cross-checked.
 
-Output: ``results/ring_occupancy.json`` — consumed by
-``parallel/comm_model.py``'s frontier pricing in the two-host prediction
-(results/scaling_model.json).
+Output: ``ring_occupancy.json`` — consumed by
+``parallel/comm_model.py``'s frontier pricing in the four-card prediction
+(``scripts/gen_scaling_model.py --occupancy``).
 
 Usage::
 
     python scripts/ring_occupancy.py --graphs got,synth:65536x16 \
-        --out results/ring_occupancy.json
+        --out ring_occupancy.json
 """
 
 from __future__ import annotations
@@ -200,7 +200,7 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-inflation", action="store_true")
     ap.add_argument("--orders", default="degree,id")
     ap.add_argument("--caps", default="4,8,16,32")
-    ap.add_argument("--out", default="results/ring_occupancy.json")
+    ap.add_argument("--out", default="ring_occupancy.json")
     args = ap.parse_args(argv)
 
     import jax

@@ -1,17 +1,13 @@
-"""H x B knee sweep at the 1M-node scale config (round 5, VERDICT r4
-item 4).
+"""Hub count x batch sweep of FORA top-k at the 1M-node configuration.
 
-results/scale_1m_nodes.json's 25-qps row predates the hub-knee and
-B=1024 work; PERF.md names "bigger hub matrix" as the remaining lever at
-this scale. This sweeps hub count x batch on the real TPU exactly like
-scripts/hub_knee.py did for the 65k headline graph and re-headlines the
-1M config. Each measured point is appended to the artifact immediately
-(the remote TPU worker's transient crashes must not lose a finished
-point — scripts/scale_1m.py pattern), and a re-run skips recorded points.
+Graph ``synth:1048576x8`` (n=1,048,576, m~8.4M). Sweeps the bf16 hub count
+and the batch width through the serving path
+(:meth:`ForaTopk.compute_topk_ids_batch`) and records queries/s per point;
+each point is written to the output as soon as it is measured.
 
-Run on the real TPU (no other device process)::
+Run on the device (one process per device)::
 
-    python scripts/scale_1m_knee.py --out results/scale_1m_knee.json
+    python scripts/scale_1m_knee.py --out scale_1m_knee.json
 """
 
 from __future__ import annotations
@@ -30,15 +26,13 @@ def main(argv=None) -> int:
     ap.add_argument("--db", default="synth:1048576x8")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--eps", type=float, default=0.5)
-    # HBM-aware ladders: at n=1M a bf16 hub matrix costs ~2 GB per 1024
-    # hubs (n_pad * H * 2B) next to the [B, n] f32 state arrays — the
-    # first sweep measured H=4096 at B=256 RESOURCE_EXHAUSTED. Points
-    # that still OOM are recorded as failures, not crashes.
+    # at n=1M a bf16 hub matrix costs ~2 GB per 1024 hubs
+    # (n_pad * H * 2B) next to the [B, n] f32 state arrays
     ap.add_argument("--batches", default="256,512,1024")
     ap.add_argument("--hubs", default="1024,1920,2560,3072")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--out", default="results/scale_1m_knee.json")
+    ap.add_argument("--out", default="scale_1m_knee.json")
     args = ap.parse_args(argv)
 
     if args.cpu:
@@ -59,15 +53,6 @@ def main(argv=None) -> int:
     out_path = Path(args.out)
     state = {"db": args.db, "k": args.k, "eps": args.eps,
              "reps": args.reps, "rows": []}
-    if out_path.exists():
-        state = json.loads(out_path.read_text())
-        # error rows (e.g. OOM) are retried on resume — e.g. after a code
-        # fix like the chunked hybrid tail — successful rows are kept
-        retry = [r for r in state["rows"] if "error" in r]
-        state["rows"] = [r for r in state["rows"] if "error" not in r]
-        print(f"resuming: {len(state['rows'])} recorded points, "
-              f"{len(retry)} error points to retry", flush=True)
-    seen = {(r["batch"], r["hubs"]) for r in state["rows"]}
 
     ds = load_dataset(args.db)
     g = ds.graph
@@ -84,30 +69,19 @@ def main(argv=None) -> int:
     for b in (int(x) for x in args.batches.split(",")):
         sources = rng.integers(0, g.n, size=b)
         for h in (int(x) for x in args.hubs.split(",")):
-            if (b, h) in seen:
-                print(f"skip recorded B={b} H={h}", flush=True)
-                continue
-            try:
-                fora = ForaTopk(ds, 0.15, args.k, push="none")
-                fora.enable_hub_split(h, dtype=jnp.bfloat16)
-                t0 = time.perf_counter()
+            fora = ForaTopk(ds, 0.15, args.k, push="none")
+            fora.enable_hub_split(h, dtype=jnp.bfloat16)
+            t0 = time.perf_counter()
+            fora.compute_topk_ids_batch(sources, args.k, args.eps)
+            t_cold = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(args.reps):
                 fora.compute_topk_ids_batch(sources, args.k, args.eps)
-                t_cold = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                for _ in range(args.reps):
-                    fora.compute_topk_ids_batch(sources, args.k, args.eps)
-                dt = (time.perf_counter() - t0) / args.reps
-                hs = fora.hub_split
-                cover = (1.0 - hs.m_tail / max(g.m, 1)) \
-                    if hs is not None else 0.0
-                row = {"batch": b, "hubs": h,
-                       "hub_edge_cover": round(cover, 4),
-                       "cold_s": round(t_cold, 2),
-                       "s_per_batch": round(dt, 4),
-                       "qps": round(b / dt, 1)}
-            except Exception as e:  # noqa: BLE001 - OOM points are data
-                row = {"batch": b, "hubs": h, "qps": 0.0,
-                       "error": f"{type(e).__name__}: {str(e)[:160]}"}
+            dt = (time.perf_counter() - t0) / args.reps
+            hs = fora.hub_split
+            cover = (1.0 - hs.m_tail / max(g.m, 1)) if hs is not None else 0.0
+            row = {"batch": b, "hubs": h, "hub_edge_cover": cover,
+                   "cold_s": t_cold, "s_per_batch": dt, "qps": b / dt}
             state["rows"].append(row)
             save()
             print(json.dumps(row), flush=True)

@@ -8,12 +8,12 @@ submit-to-result latency percentiles per rate.
 
 The reference has no serving story (its only driver is the sequential
 benchmark loop, Gen_Util.java:146-165); this is the production-facing
-counterpart of the qps headline: VERDICT round-1 item 8.
+counterpart of the qps headline.
 
-Usage (real TPU, 1M-node graph)::
+Usage (on the device, 1M-node graph)::
 
     python scripts/serving_latency.py --db synth:1048576x16 \
-        --rates 0.25,0.5,0.8 --duration-s 30 --out results/serving_latency.json
+        --rates 0.25,0.5,0.8 --duration-s 30 --out serving_latency.json
 
 CPU smoke: ``--cpu --db synth:2048x8 --duration-s 3``.
 """
@@ -119,8 +119,7 @@ def run_daemon_mode(args) -> int:
         cmd += ["--prewarm"]
     env = dict(os.environ)
     if args.cpu:
-        # the daemon subprocess must opt into CPU the same way we did
-        env["PPR_TPU_FORCE_CPU"] = "1"
+        env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.Popen(cmd, stdin=subprocess.PIPE,
                             stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env,
@@ -254,7 +253,7 @@ def main(argv=None) -> int:
     ap.add_argument("--daemon", action="store_true",
                     help="drive the stdio daemon as a subprocess (full "
                          "wire path); --rates must be absolute qps")
-    ap.add_argument("--out", default="results/serving_latency.json")
+    ap.add_argument("--out", default="serving_latency.json")
     args = ap.parse_args(argv)
 
     if args.daemon:
@@ -291,8 +290,7 @@ def main(argv=None) -> int:
     # warm loop (submit b requests, wait) could not warm wide rungs in SLO
     # mode at all — the adaptive cap starts at min_batch, so a 256-request
     # flood dispatched as 32 narrow batches and the wide programs were
-    # never compiled, which is exactly how the round-3 argmin policy ended
-    # up blind to them (results/serving_latency_slo800_v2.json; VERDICT).
+    # never compiled, which leaves the argmin policy blind to them.
     with PPRBatchServer(svc, max_batch=args.max_batch,
                         slo_ms=args.slo_ms, prewarm=True) as server:
         print(f"prewarmed svc_time_ms: "
@@ -303,8 +301,8 @@ def main(argv=None) -> int:
         cap = measure_capacity(server, sources, args.max_batch)
         print(f"measured capacity: {cap:.1f} qps "
               f"(max_batch={args.max_batch})", flush=True)
-        # Static-cap ceiling estimate from the warm EWMAs (VERDICT r4
-        # weak 4: in SLO mode the probe above runs with the policy live,
+        # Static-cap ceiling estimate from the warm EWMAs (in SLO mode
+        # the probe above runs with the policy live,
         # so its number is policy-constrained — a bare "capacity_qps"
         # made cross-run comparisons apples-to-oranges). Best warm
         # rows-per-second over the prewarmed ladder = what a static cap
@@ -328,9 +326,9 @@ def main(argv=None) -> int:
     out = {
         "dataset": {"name": ds.name, "n": ds.graph.n, "m": ds.graph.m},
         "capacity_qps": round(cap, 2),
-        # self-describing capacity semantics (VERDICT r4 weak 4):
-        # capacity_qps is measured WITH the active policy (the SLO cap, if
-        # any); capacity_static_est_qps is the static-cap ceiling derived
+        # self-describing capacity semantics: capacity_qps is measured
+        # WITH the active policy (the SLO cap, if any);
+        # capacity_static_est_qps is the static-cap ceiling derived
         # from the warm per-width EWMAs (argmax width/t). Load-fraction
         # rows use capacity_qps as their base.
         "capacity_basis": ("slo_policy" if args.slo_ms else "static_cap"),
@@ -349,7 +347,6 @@ def main(argv=None) -> int:
         out["svc_time_ms"] = {str(w): round(t, 1) for w, t in
                               sorted(server._svc_time_ms.items())}
         out["cap_moves"] = server.stats.cap_moves
-        out["prewarm_failed_widths"] = server.stats.prewarm_failed_widths
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1) + "\n")
     print(f"wrote {args.out}")

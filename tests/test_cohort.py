@@ -1,9 +1,9 @@
-"""Per-row cohort serving path (round-4 latency-floor work).
+"""Per-row cohort serving path (the latency-floor mechanism).
 
 The batch-global annealed loop (models/fora.annealed_topk_propagate) holds
 every row in a dispatch until the SLOWEST row finishes, which sets the
-serving latency floor at one full sweep train (VERDICT r3 item 4 /
-Fora_Topk.java:173-176's per-query stopping rule applied batch-globally).
+serving latency floor at one full sweep train (Fora_Topk.java:173-176's
+per-query stopping rule applied batch-globally).
 The cohort path anneals PER ROW — each row follows exactly the schedule a
 single-query run would (reference semantics row-wise) — and retires
 finished rows down a pow2 width ladder so their futures resolve early.

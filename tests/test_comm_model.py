@@ -1,15 +1,15 @@
-"""Communication model (VERDICT r2 weak item 1): bytes formulas, prediction
-structure, and the measured collective-vs-compute breakdown on the virtual
-mesh."""
+"""Communication model: bytes formulas, prediction structure, pricing from
+the device table, and the measured collective-vs-compute breakdown on the
+virtual mesh."""
 
 import numpy as np
 
 from ppr_tpu.parallel.comm_model import (
+    four_card_prediction,
     measure_breakdown,
     predict_sweep,
     psum_bytes_per_sweep,
     ring_bytes_per_sweep,
-    two_host_prediction,
 )
 from ppr_tpu.parallel.sharded import make_mesh
 
@@ -41,14 +41,35 @@ def test_predict_sweep_efficiency_monotone():
 
 
 def test_two_host_prediction_fields():
+    """The multi-device prediction (four NVLink cards of one host, priced
+    from the device table) keeps its structure."""
     from ppr_tpu.graph.io import synthetic_powerlaw
+    from ppr_tpu.utils.devices import TABLE
 
     g = synthetic_powerlaw(8192, 8, seed=1, dense_threshold=0).graph
-    out = two_host_prediction(g, batch=512)
-    assert out["data_parallel_2host"]["efficiency"] == 1.0
-    assert 0 < out["graph_parallel_2host"]["efficiency"] <= 1.0
-    assert out["two_host_relative_efficiency"] > 0
-    assert "assumptions" in out
+    h100 = TABLE["NVIDIA H100 80GB HBM3"]
+    out = four_card_prediction(g, batch=512, rates=h100)
+    assert out["data_parallel"]["efficiency"] == 1.0
+    assert out["graph_parallel_1card"]["efficiency"] == 1.0
+    assert 0 < out["graph_parallel"]["efficiency"] <= 1.0
+    assert out["assumptions"]["link_bytes_per_s"] == h100.link_bytes_per_s
+
+
+def test_predict_sweep_prices_per_row_rates():
+    """A device whose sweep cost is per row pays it for every local row;
+    the comm time comes from the table's link rate."""
+    import dataclasses
+
+    from ppr_tpu.graph.io import synthetic_powerlaw
+    from ppr_tpu.utils.devices import TABLE
+
+    g = synthetic_powerlaw(4096, 8, seed=1, dense_threshold=0).graph
+    per_sweep = TABLE["NVIDIA H100 80GB HBM3"]
+    per_row = dataclasses.replace(per_sweep, spmv_batch_amortized=False)
+    a = predict_sweep(g, s_graph=4, batch=64, rates=per_sweep)
+    b = predict_sweep(g, s_graph=4, batch=64, rates=per_row)
+    assert np.isclose(b.t_compute_s, 64 * a.t_compute_s)
+    assert np.isclose(a.t_comm_s, a.comm_bytes / per_sweep.link_bytes_per_s)
 
 
 def test_measure_breakdown_virtual_mesh():

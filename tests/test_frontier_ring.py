@@ -1,7 +1,6 @@
-"""Frontier-compacted ring exchange (round-5 graph-axis comm work,
-VERDICT r4 item 3).
+"""Frontier-compacted ring exchange (graph-axis communication).
 
-The node-sharded sweep's ICI traffic is the circulating [B_l, n_local]
+The node-sharded sweep's link traffic is the circulating [B_l, n_local]
 residue chunk. ``frontier_blocks=C`` compacts each hop's payload to the C
 column blocks carrying the most residue mass (``[B_l, C*blk]`` values +
 ``[C]`` ids); unselected residue defers in place — exact, since push

@@ -152,9 +152,9 @@ def test_fora_topk_with_hub_split_matches(got):
 
 
 def test_hybrid_chunked_tail_matches_unchunked(got):
-    """num_chunks>1 bounds the tail gather intermediate (the 1M-node
-    B>=512 OOM fix, results/scale_1m_knee.json); slicing the dst-sorted
-    tail preserves the sorted segment-sum result exactly."""
+    """num_chunks>1 bounds the tail gather intermediate (the out-of-memory
+    guard for wide batches at n=1M); slicing the dst-sorted tail preserves
+    the sorted segment-sum result exactly."""
     import jax.numpy as jnp
     import numpy as np
 

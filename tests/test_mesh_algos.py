@@ -1,5 +1,5 @@
-"""Mesh-backed protocol algorithms == single-device engines (VERDICT r2
-gap 4 / next-round item 5): every algorithm the harness runs — including
+"""Mesh-backed protocol algorithms == single-device engines: every
+algorithm the harness runs — including
 the preprocessing sweeps — must be selectable on a device mesh and agree
 with the single-device implementations.
 """

@@ -94,8 +94,7 @@ def test_store_ordered_rows(tmp_path):
 
 def test_store_manifest_ranges_skip_shard_scan(tmp_path):
     """A finalized manifest carries source->shard ranges; attaching a store
-    resolves reads via bisect with ZERO up-front shard loads (VERDICT r2
-    weak item 6)."""
+    resolves reads via bisect with ZERO up-front shard loads."""
     from ppr_tpu.utils.store import PPRStore
 
     n = 32

@@ -1,5 +1,4 @@
-"""Node-sharded end-to-end FORA top-k == single-device engine (VERDICT r2
-item 1).
+"""Node-sharded end-to-end FORA top-k == single-device engine.
 
 Runs the full annealed FORA top-k query path with O(n/S)-memory node-sharded
 state on the virtual 8-device CPU mesh and asserts it matches both the

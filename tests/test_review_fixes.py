@@ -1,4 +1,4 @@
-"""Regression tests for the round-1 code-review findings."""
+"""Regression tests for code-review findings."""
 
 import numpy as np
 

@@ -1,6 +1,6 @@
-"""bf16 ring payloads (round-4 graph-axis comm work, VERDICT r3 item 3).
+"""bf16 ring payloads (graph-axis communication).
 
-The node-sharded engines' per-sweep ICI traffic is the circulating
+The node-sharded engines' per-sweep link traffic is the circulating
 [B_local, n_local] residue chunk — the linear term of the comm model
 (parallel/comm_model.py). ``ring_dtype="bf16"`` casts the chunk to
 bfloat16 for each ppermute hop and widens back to f32 on arrival, halving
@@ -82,8 +82,8 @@ def test_bf16_annealed_topk_ids_match_f32(got, mesh8):
 def test_comm_model_prices_bf16(got):
     from ppr_tpu.parallel.comm_model import (
         predict_sweep,
+        four_card_prediction,
         ring_bytes_per_sweep,
-        two_host_prediction,
     )
 
     g = got.graph
@@ -96,6 +96,6 @@ def test_comm_model_prices_bf16(got):
     assert p16.efficiency > p32.efficiency
     # the overlapped bound is at least the serial efficiency, capped at 1
     assert 1.0 >= p16.efficiency_overlap >= p16.efficiency
-    out = two_host_prediction(g, batch=512)
-    assert out["node_sharded_2host_bf16_ring"]["efficiency"] > \
-        out["node_sharded_2host"]["efficiency"]
+    out = four_card_prediction(g, batch=512)
+    assert out["node_sharded_bf16_ring"]["efficiency"] > \
+        out["node_sharded"]["efficiency"]

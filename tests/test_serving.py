@@ -185,9 +185,8 @@ def test_latency_percentiles_empty():
 class TimedFakeService:
     """Deterministic service-time model: t(width) = base + per_row * width.
 
-    Affine-in-width matches the measured device profile (PERF.md: fixed
-    dispatch overhead + per-row cost past the knee); lets the SLO policy be
-    pinned on CPU without a device.
+    Affine in width: a fixed dispatch overhead plus a per-row cost past the
+    knee; lets the SLO policy be pinned on CPU without a device.
     """
 
     def __init__(self, base_ms=1.0, per_row_ms=1.0):
@@ -213,9 +212,8 @@ def _flood(server, n, spacing_s=0.0):
 def test_slo_unattainable_grows_under_backlog():
     """SLO below the service-time intercept => no width can meet it; the
     policy must flip to best-effort (throughput) mode and GROW under
-    backlog instead of pinning the cap at min_batch. (Pinning was the
-    round-3 measured pathology: 68x capacity collapse with a worse p50 —
-    results/serving_latency_slo800.json.)"""
+    backlog instead of pinning the cap at min_batch. (Pinning collapses
+    capacity with a worse p50.)"""
     svc = TimedFakeService(base_ms=5.0, per_row_ms=5.0)  # t(8) = 45ms
     with PPRBatchServer(svc, max_batch=256, slo_ms=20.0, min_batch=8,
                         bucket=True) as server:
@@ -232,10 +230,9 @@ def test_slo_unattainable_jumps_to_fastest_rung_when_idle():
     to the sampled rung with the smallest warm service time. With service
     time increasing in width (fake: t = 5 + 5*w) that is min_batch; a
     one-rung-per-dispatch walk is NOT required (every sampled rung is
-    already compiled, so the jump is free — and the round-3 TPU re-run
-    showed one-rung idle shrinking oscillates into queue spikes,
-    results/serving_latency_slo800_fixed.json). A LONE idle gap must not
-    move the cap down (the 8<->16 oscillation, ADVICE r3)."""
+    already compiled, so the jump is free — and one-rung idle shrinking
+    oscillates into queue spikes). A LONE idle gap must not move the cap
+    down (an 8<->16 oscillation)."""
     svc = TimedFakeService(base_ms=5.0, per_row_ms=5.0)
     server = PPRBatchServer(svc, max_batch=256, slo_ms=20.0, min_batch=8,
                             bucket=True)
@@ -256,9 +253,9 @@ def test_slo_unattainable_jumps_to_fastest_rung_when_idle():
 
 
 def test_slo_unattainable_idle_prefers_fast_wide_rung():
-    """On hardware where t(width) is flat or inverted (the measured TPU
-    case: t(8)=1.79 s > t(256)=0.62 s), the latency-optimal idle width is
-    the WIDE rung — the policy must not walk back to min_batch."""
+    """On hardware where t(width) is flat or inverted (here t(8)=1.79 s >
+    t(256)=0.62 s), the latency-optimal idle width is the WIDE rung — the
+    policy must not walk back to min_batch."""
     server = PPRBatchServer(TimedFakeService(base_ms=1.0, per_row_ms=0.0),
                             max_batch=256, slo_ms=200.0,
                             min_batch=8, bucket=True)
@@ -291,8 +288,8 @@ def test_slo_cap_grows_under_backlog_within_slo():
 
 
 def test_slo_cold_sample_ignored():
-    """A width's first-ever dispatch (remote-compile-dominated on TPU) must
-    not move the cap; the warm second sample governs."""
+    """A width's first-ever dispatch (compile-dominated) must not move the
+    cap; the warm second sample governs."""
     from ppr_tpu.serving import PPRBatchServer as S
 
     svc = TimedFakeService(base_ms=1.0, per_row_ms=0.01)
@@ -333,10 +330,10 @@ def test_slo_off_uses_static_cap():
 
 def test_prewarm_seeds_full_ladder():
     """prewarm=True compiles every pow2 rung up to max_batch and seeds a
-    warm EWMA for each BEFORE serving — the structural fix for the round-3
-    collapse, where wide rungs' only dispatches were cold compiles whose
-    samples the policy (correctly) skipped, leaving the idle argmin blind
-    to the fast wide rungs (results/serving_latency_slo800_v2.json)."""
+    warm EWMA for each BEFORE serving — the structural fix for the
+    capacity collapse where wide rungs' only dispatches were cold compiles
+    whose samples the policy (correctly) skipped, leaving the idle argmin
+    blind to the fast wide rungs."""
     svc = TimedFakeService(base_ms=1.0, per_row_ms=0.01)
     with PPRBatchServer(svc, max_batch=64, slo_ms=1000.0,
                         prewarm=True) as server:
@@ -348,11 +345,10 @@ def test_prewarm_seeds_full_ladder():
 
 
 def test_prewarmed_unattainable_jumps_straight_to_fast_wide_rung():
-    """With an inverted t(width) backend (wide = fast, the measured TPU
-    profile) and an unattainable SLO, a prewarmed server must converge its
-    cap to the wide rung and STAY there — the capacity-collapse regression
-    test for results/serving_latency_slo800_v2.json (cap stuck
-    oscillating 8<->16 at 32.6 qps vs 414 static)."""
+    """With an inverted t(width) backend (wide = fast) and an unattainable
+    SLO, a prewarmed server must converge its cap to the wide rung and STAY
+    there — the capacity-collapse regression test (cap stuck oscillating
+    8<->16 at a fraction of the static-cap throughput)."""
 
     class InvertedService(TimedFakeService):
         # t(w) = 60 - 0.2*w ms: t(8)=58.4, t(256)=8.8 (monotone inverted)
@@ -383,8 +379,8 @@ def test_unprewarmed_unattainable_explores_ladder():
     """Without prewarm, best-effort mode must still DISCOVER fast wide
     rungs by padding dispatches up the ladder while the warm trend is
     non-increasing (exploration), rather than waiting for backlog that
-    light load never produces — ADVICE r3's 'wide rungs are never
-    sampled' defect."""
+    light load never produces (otherwise wide rungs are never
+    sampled)."""
 
     class FlatService(TimedFakeService):
         # flat t(w): wider is never worse -> exploration should reach 64
@@ -406,15 +402,15 @@ def test_unprewarmed_unattainable_explores_ladder():
 
 def test_slo_unattainable_flag_clears_on_recovery():
     """stats.slo_unattainable tracks the CURRENT regime: a later warm
-    sample proving the SLO attainable clears it (ADVICE r3: the old latch
-    misreported recovered runs); slo_unattainable_ever keeps the record."""
+    sample proving the SLO attainable clears it (a latch would misreport
+    recovered runs); slo_unattainable_ever keeps the record."""
     svc = TimedFakeService(base_ms=1.0, per_row_ms=0.01)
     server = PPRBatchServer(svc, max_batch=256, slo_ms=50.0, min_batch=8)
     try:
         server._slo_update(8, 100.0, backlog=True)   # cold (skipped)
         server._slo_update(8, 100.0, backlog=True)   # warm: unattainable
         assert server.stats.slo_unattainable
-        # transient cleared (e.g. a worker-crash retry polluted the EWMA);
+        # transient cleared (an outlier polluted the EWMA);
         # fresh fast samples pull the EWMA back under the SLO
         for _ in range(6):
             server._slo_update(8, 4.0, backlog=True)
@@ -427,7 +423,7 @@ def test_slo_unattainable_flag_clears_on_recovery():
 def test_stale_ewma_reprobed():
     """A wider rung whose EWMA has not been refreshed in `stale_after`
     dispatches gets re-dispatched (probe) so a transient outlier cannot
-    disable widening forever (ADVICE r3)."""
+    disable widening forever."""
     svc = TimedFakeService(base_ms=1.0, per_row_ms=0.01)
     server = PPRBatchServer(svc, max_batch=64, stale_after=10)
     try:
@@ -467,12 +463,11 @@ def _policy_server(slo_ms=800.0, max_batch=256, warm=None, cap=64):
 
 
 def test_slo_breach_jumps_to_fastest_warm_rung_not_halving():
-    """v4 spiral regression (VERDICT r4 item 1): when the current rung's
-    EWMA inflates past the SLO under sustained load while other warm rungs
-    still fit, the cap must jump to the fastest warm rung in ONE move —
-    the v3 halving walk went 64->32->16 (the latency-pessimal direction on
-    the measured inverted-t(width) backend) for ~170 dispatches
-    (results/serving_latency_slo800_v3.json, 50%-load row: p95 10.9 s)."""
+    """Shrink-spiral regression: when the current rung's EWMA inflates
+    past the SLO under sustained load while other warm rungs still fit,
+    the cap must jump to the fastest warm rung in ONE move — a halving
+    walk goes 64->32->16 (the latency-pessimal direction on an
+    inverted-t(width) backend) for hundreds of dispatches."""
     server = _policy_server(
         warm={8: 500.0, 64: 420.0, 256: 250.0}, cap=64)
     # sustained-load sample at the current rung inflates its EWMA past the
@@ -517,7 +512,7 @@ def test_slo_breach_jump_beats_classic_shrink_when_evidence_exists():
 
 
 def test_explore_width_fills_ladder_gaps_from_below():
-    """ADVICE r4: a burst-warmed high rung must not hide unwarmed rungs
+    """A burst-warmed high rung must not hide unwarmed rungs
     below it — exploration returns the first unwarmed rung >= the natural
     width, scanning the ladder from the bottom."""
     server = _policy_server(slo_ms=5.0, max_batch=64,
@@ -537,38 +532,33 @@ def test_explore_width_rising_trend_uses_adjacent_rungs():
     assert server._explore_width(8) is None       # 200 > 1.2*90: rising
 
 
-def test_prewarm_transient_failure_skips_rung(monkeypatch):
-    """ADVICE r4 (medium): a transient backend failure during the in-init
-    ladder probe must not abort server construction — the rung is retried
-    once, then skipped and recorded, and the rest of the ladder warms."""
-    import ppr_tpu.serving as serving_mod
+def test_prewarm_transient_failure_skips_rung():
+    """A width that fails during the ladder probe fails server
+    construction: a server that cannot run one of its own widths is not
+    ready to serve, and a retry-and-skip would hide a device fault."""
+    import pytest
+
     from ppr_tpu.serving import PPRBatchServer
 
-    monkeypatch.setattr(serving_mod, "_PREWARM_RETRY_S", 0.0)
-
-    class FlakyAt32(TimedFakeService):
+    class FailsAt32(TimedFakeService):
         def top_k(self, sources, k=None, eps=None):
             if len(sources) == 32:
-                raise RuntimeError("TPU worker process crashed")
+                raise RuntimeError("device failure at width 32")
             return super().top_k(sources, k, eps)
 
-    svc = FlakyAt32(base_ms=1.0, per_row_ms=0.01)
-    with PPRBatchServer(svc, max_batch=64, slo_ms=1000.0,
-                        prewarm=True) as server:
-        assert sorted(server._svc_time_ms) == [8, 16, 64]
-        assert server.stats.prewarm_failed_widths == [32]
-        assert server.stats.prewarmed_widths == [8, 16, 64]
-        # serving still works end to end
-        assert server.submit(1).result(timeout=60)
+    svc = FailsAt32(base_ms=1.0, per_row_ms=0.01)
+    with pytest.raises(RuntimeError, match="width 32"):
+        PPRBatchServer(svc, max_batch=64, slo_ms=1000.0, prewarm=True)
+    # the rungs below the failing one ran once cold, once warm; no retry
+    assert svc.widths == [8, 8, 16, 16]
 
 
 def test_sustained_backlog_jumps_to_max_throughput_rung():
-    """v5 (measured on TPU, results/serving_latency_slo800_v4.json):
-    under SUSTAINED backlog latency is queue-dominated — the 2*t model
+    """Under SUSTAINED backlog latency is queue-dominated — the 2*t model
     undercounts — so after backlog_hysteresis backlogged dispatches the
     cap must jump to the max rows/sec rung regardless of per-dispatch
-    SLO fit. The measured profile that broke v4: t(16)=289 ms looked
-    SLO-optimal but drains 55 rows/s vs 96 offered."""
+    SLO fit. The profile below: t(16)=289 ms looks SLO-optimal but drains
+    55 rows/s against a higher offered load."""
     server = _policy_server(
         warm={16: 289.0, 64: 404.0, 256: 625.0}, cap=16)
     for _ in range(3):

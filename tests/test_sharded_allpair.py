@@ -1,5 +1,4 @@
-"""Sharded BASE all-pair preprocessing == single-device path (VERDICT r1
-item 1's remaining clause: "no sharded BASE all-pair sweep").
+"""Sharded BASE all-pair preprocessing == single-device path.
 
 The backward-search sweep and the full BASE preprocessing+query pipeline
 run on the virtual 8-device (data, graph) CPU mesh and must reproduce the

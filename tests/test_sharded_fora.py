@@ -1,4 +1,4 @@
-"""End-to-end sharded FORA top-k == single-device engine (VERDICT r1 item 1).
+"""End-to-end sharded FORA top-k == single-device engine.
 
 Runs the full annealed FORA top-k query path on the virtual 8-device CPU
 mesh and asserts the results match the single-device engine: same top-k id
